@@ -1,10 +1,10 @@
-"""dvbt2ll_tpu: a TPU-native DVB-T2 (EN 302 755) transmit framework.
+"""dvbt2ll_tpu: a DVB-T2 (EN 302 755) transmit framework in JAX.
 
 A from-scratch JAX/XLA implementation with the capabilities of the
 gr-dvbt2ll GNU Radio module (plus the in-tree LDPC encoder its example
-flowgraph depends on), redesigned for TPU: the whole chain compiles to a
-handful of gathers, GF(2) matmuls and batched IFFTs over batches of T2
-frames, sharded across chips with jax.sharding.
+flowgraph depends on), redesigned for an accelerator: the whole chain
+compiles to a handful of gathers, GF(2) matmuls and batched IFFTs over
+batches of T2 frames, sharded across devices with jax.sharding.
 """
 from .config import (Bandwidth, CarrierMode, CodeRate, Constellation, FFTSize,
                      FrameSize, GuardInterval, InBand, InputMode,

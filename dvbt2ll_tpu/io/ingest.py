@@ -3,7 +3,7 @@
 The reference leans on the GNU Radio runtime for its input path (the
 ``ule_ule_source`` block and GR's single-writer ring buffers feeding
 ``bbheaderbch_bb``); here a small C++ runtime does the same job for the
-TPU chain: a producer thread pumps an fd into a lock-free ring, aligns
+jitted chain: a producer thread pumps an fd into a lock-free ring, aligns
 and re-syncs on the 0x47 sync byte, stuffs null packets on underrun, and
 emits step-sized windows with the 187-byte carry prepended.
 """

@@ -4,7 +4,7 @@ The reference's only observability is GR_LOG_WARN on malformed TS and
 GR_LOG_FATAL on allocation failure (SURVEY.md section 5.5).  The
 framework provides structured per-transmitter counters (frames, samples,
 wall time, real-time margin) plus a context manager around the JAX/XLA
-profiler for xprof traces.
+profiler (tools/trace_report.py reads its traces).
 """
 from __future__ import annotations
 
@@ -70,7 +70,7 @@ def check_ts_sync(ts: "np.ndarray", phase: int = 0,
 
 @contextlib.contextmanager
 def profile_trace(logdir: str):
-    """Capture an xprof/TensorBoard trace of everything inside the block."""
+    """Capture a JAX profiler trace of everything inside the block."""
     import jax
 
     jax.profiler.start_trace(logdir)

@@ -4,8 +4,7 @@ PER-CHANNEL configs on one device pool.
 The reference analog is "N independent flowgraphs" (SURVEY.md section 2.3
 / BASELINE config 5: 8+ independent DVB-T2 channels).  Channels with
 different modes have different tensor shapes, so one shard_map cannot
-cover them; the TPU-idiomatic composition is a SUBMESH per channel
-group: the device pool is partitioned, each group gets its own
+cover them; the composition is a SUBMESH per channel group: the device pool is partitioned, each group gets its own
 (mux, frame) mesh and ShardedTransmitter, and the groups' XLA programs
 run concurrently because they touch disjoint devices and dispatch is
 asynchronous (step enqueues every group before any drain).  Channels
@@ -53,8 +52,7 @@ class MultiMuxTransmitter:
     ``jax.devices()``).  Devices are assigned to groups in order.
     """
 
-    def __init__(self, channels: Sequence, devices=None,
-                 use_pallas: Optional[bool] = None):
+    def __init__(self, channels: Sequence, devices=None):
         import dataclasses
 
         devices = list(devices if devices is not None else jax.devices())
@@ -107,7 +105,6 @@ class MultiMuxTransmitter:
             self.transmitters.append(ShardedTransmitter(
                 c.cfg, mesh, n_mux=c.n_mux,
                 frames_per_shard=c.frames_per_shard, strict=c.strict,
-                use_pallas=use_pallas,
                 allow_phase_drift=c.allow_phase_drift))
 
     @property

@@ -6,8 +6,7 @@ host-side into a handful of dense constants so the device graph is:
 
     packet-row unpack -> GF(2) matmul (packet CRC) -> column concat
     -> XOR (scramble) -> GF(2) matmul (BCH)
-    -> quasi-cyclic roll schedule + factored prefix-XOR scan (LDPC;
-       a VMEM-resident Pallas kernel on TPU)
+    -> quasi-cyclic roll schedule + factored prefix-XOR scan (LDPC)
     -> gather (bit interleave) -> integer gray map + rotation + Q-roll
     -> ONE gather (cell/time ilv o zigzag o freq ilv o carrier placement,
        all composed into grid_src) + pilot plane
@@ -129,9 +128,7 @@ class PlpPlan:
     crc_scatter: np.ndarray = field(repr=False, default=None)    # (P*8,) i32
     scramble: np.ndarray = field(repr=False, default=None)       # (kbch,) u8
     bch_matrix: np.ndarray = field(repr=False, default=None)     # (kbch, npar) i8
-    # QC-roll schedule: per accumulator column, [(group row, roll)] - beats
-    # the padded-gather formulation for every table on TPU (1.4x short,
-    # 2.1x normal) and compiles faster there too
+    # QC-roll schedule: per accumulator column, [(group row, roll)]
     ldpc_cols: tuple = field(repr=False, default=None)
     mapper_perm: np.ndarray = field(repr=False, default=None)    # (N,) i32
     ti_perm: np.ndarray = field(repr=False, default=None)        # (stream,) i32

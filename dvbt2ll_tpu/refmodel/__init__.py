@@ -3,7 +3,7 @@
 This package mirrors the *algorithms* of the reference implementation
 (gr-dvbt2ll) stage by stage with plain loops, exactly as the C++ hot loops
 execute them, and serves as the golden model for testing the composed
-TPU plan.  It is deliberately slow and simple.
+jitted plan.  It is deliberately slow and simple.
 """
 from .chain import (bbheader_frames, interleave_and_map, ldpc_encode,
                     frame_map, ofdm_modulate, transmit_chain)

@@ -2,7 +2,7 @@
 
 `data/standards.npz` holds the raw integer tables machine-extracted from the
 reference sources (see tools/extract_tables.py for provenance and citations);
-the modules here turn them into the dense numpy structures the TPU path
+the modules here turn them into the dense numpy structures the jitted path
 consumes (GF(2) generator matrices, gather index planes, pilot planes).
 """
 import functools

@@ -4,7 +4,7 @@ The reference builds BB frames byte-serially with two CRC-8 implementations
 (lib/bbheaderbch_bb_impl.cc:222-270 bit-serial for the header, :399-417 +
 :701-719 table-driven for the TS sync replacement).  CRC-8 is GF(2)-linear,
 so both become small constant matrices and the whole stage is one gather +
-one mod-2 matmul on TPU.
+one mod-2 matmul.
 
 Stream contract: a transmit step processes frames whose TS byte phase is
 known statically.  Each output byte slot consumes exactly one input byte;

@@ -2,8 +2,8 @@
 
 The BCH encoders in the reference are bit/byte-serial LFSRs
 (lib/bbheaderbch_bb_impl.cc:424-531, lib/framemapperfint_cc_impl.cc:1269-1312).
-BCH encoding is GF(2)-linear, so on TPU we express it as a single
-(batch, kbch) x (kbch, n_parity) mod-2 matrix product that rides the MXU.
+BCH encoding is GF(2)-linear, so it becomes a single
+(batch, kbch) x (kbch, n_parity) mod-2 matrix product.
 This module builds the generator matrices host-side.
 
 Minimal polynomials below are the EN 302 755 table 7 constants, written as

@@ -4,7 +4,7 @@ The reference encodes LDPC with a per-parity-bit lookup of info-bit indices
 followed by a sequential XOR chain (lib/bbheaderbch_bb_impl.cc:569-646, used
 disabled in-tree; active for L1 in lib/framemapperfint_cc_impl.cc:1314-1364).
 
-TPU formulation: the accumulation step becomes ONE static gather - for each
+Gather formulation: the accumulation step becomes ONE static gather - for each
 parity position a padded list of info-bit indices - reduced with XOR, and the
 final chain p[j] ^= p[j-1] is a cumulative XOR (cumsum mod 2) along the parity
 axis.  This module builds the padded index matrix host-side.
@@ -87,8 +87,7 @@ def qc_entries(frame_size: FrameSize, rate: CodeRate, q: int):
     accumulator laid out as (360, q) [parity p -> row p//q, col p%q] each
     table entry (r, a) touches the FULL column a%q as a cyclic shift of the
     360-bit info group by a//q - the whole encoder becomes ~100-700 static
-    rolls + XORs with no gather (measured 1.4x faster than the padded
-    gather on TPU, and it removes the (n_parity, Dmax) index table)."""
+    rolls + XORs with no gather, and no (n_parity, Dmax) index table)."""
     tab = table(_TABLES[(frame_size, rate)])
     by_col = [[] for _ in range(q)]
     for r in range(tab.shape[0]):

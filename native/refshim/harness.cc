@@ -2,12 +2,12 @@
  * (compiled straight from $REFERENCE_DIR/lib against the stub headers in
  * shim/) end-to-end and dumps every stage boundary to raw binary files.
  *
- * This exists to break the oracle circularity flagged in VERDICT.md: the
+ * This exists to break the circularity of testing against our own oracle: the
  * vectors produced here come from the reference implementation itself
  * (bbheaderbch_bb_impl.cc:648-742, ldpc_calculate :625-646,
  * interleavermod_bc_impl.cc:270-704, framemapperfint_cc_impl.cc:1948-2151,
  * pilotgenp1insert_cc_impl.cc:2784-2907), not from any code shared with
- * the TPU fast path.
+ * the jitted fast path.
  *
  * Usage: ref_harness key=value...   (see kv() calls below for keys)
  * Outputs in outdir:

@@ -1,5 +1,5 @@
 // TS ingest runtime: lock-free ring buffer + MPEG-TS framing for the
-// TPU transmit chain.
+// jitted transmit chain.
 //
 // Plays the role the GNU Radio runtime plays for the reference module
 // (thread-per-block pipeline + ring buffers + the ule_ule_source TS input

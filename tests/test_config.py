@@ -71,7 +71,7 @@ def test_invalid_combos_raise():
 def test_version_preamble_gating():
     """The version/preamble constraints the reference encodes in its GRC
     UI (grc/dvbt2ll_framemapperfint_cc.xml:7-29) must be hard errors here;
-    each combo below validated silently before round 4."""
+    each combo below once validated silently."""
     import dataclasses
     from dvbt2ll_tpu.config import Preamble, Version
 

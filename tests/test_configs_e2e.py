@@ -273,7 +273,7 @@ def test_ti_off_bypass():
     framemapperfint :1108-1119 partition, :1999-2028 passthrough copy).
     The cell interleaver still runs, with the SAME first bit-reversed
     shift for every FEC frame (n restarts per one-frame 'TI block').
-    Untested parity code is unverified parity (VERDICT r3) — this pins
+    Untested parity code is unverified parity — this pins
     the oracle e2e path; tests/golden_ref/ti_off_4k.npz pins the same
     branch against the reference binary."""
     import dataclasses

@@ -139,56 +139,33 @@ def test_ldpc_qc_roll_matches_scatter(frame_size, rate):
     assert (p_qc == p_scatter).all()
 
 
-def test_pallas_qc_ldpc_matches_xla():
-    """The Pallas VMEM kernel (interpret mode on CPU) must equal the XLA
-    slice-schedule parity bit-for-bit."""
+@pytest.mark.parametrize("frame_size,rate,frames", [
+    (FrameSize.SHORT, CodeRate.C4_5, None),  # vv009: the plan's own F
+    (FrameSize.NORMAL, CodeRate.C2_3, 132),  # nbch 43200
+    (FrameSize.NORMAL, CodeRate.C3_4, 132),  # nbch 48600
+], ids=["vv009", "normal_c2_3", "normal_c3_4"])
+def test_xla_qc_ldpc_matches_oracle(frame_size, rate, frames):
+    """The jitted LDPC slice schedule that bb_and_fec runs must equal the
+    scatter oracle bit-for-bit on a batch of frames."""
+    import jax
     import jax.numpy as jnp
-    from dvbt2ll_tpu.config import vv009_config
-    from dvbt2ll_tpu.ops.ldpc_pallas import qc_ldpc_parity_pallas
+    from dvbt2ll_tpu.pipeline import qc_ldpc_parity
     from dvbt2ll_tpu.plan import build_plan
 
-    cfg = vv009_config()
-    plan = build_plan(cfg, 1, strict=False)
-    pp = plan.plps[0]
-    rng = np.random.default_rng(7)
-    nb = rng.integers(0, 2, (pp.fec_frames, cfg.nbch), dtype=np.uint8)
-
-    par_pallas = np.asarray(qc_ldpc_parity_pallas(
-        pp.ldpc_cols, cfg.nbch, cfg.ldpc_parity_bits, cfg.q_ldpc,
-        jnp.asarray(nb), interpret=True))
-
-    # oracle per frame
-    for i in range(nb.shape[0]):
-        ref = ldpc.encode_ref(nb[i], cfg.frame_size, cfg.code_rate,
-                              cfg.ldpc_parity_bits, cfg.q_ldpc)
-        assert (par_pallas[i] == ref).all()
-
-
-@pytest.mark.parametrize("rate,nbch", [
-    (CodeRate.C2_3, 43200),   # group_rows divides nbch exactly
-    (CodeRate.C3_4, 48600),   # group_rows pads a zero 360-row block into
-                              # the last group (ADVICE r3) — the padded
-                              # path must still match the oracle
-])
-def test_pallas_qc_ldpc_grouped_normal_frames(rate, nbch):
-    """Normal-frame tables don't fit a single VMEM-resident input block at
-    F > 128; the two-level row-grouped kernel must take over (no XLA
-    fallback) and still match the scatter oracle bit-for-bit."""
-    import jax.numpy as jnp
-    from dvbt2ll_tpu.ops.ldpc_pallas import _tile_for, qc_ldpc_parity_pallas
-
-    frame_size = FrameSize.NORMAL
-    plen = 64800 - nbch
-    q = plen // 360
-    f = 132  # > 128 forces the multi-step grid -> grouped kernel
-    tiling = _tile_for(nbch, plen, f)
-    assert tiling is not None and tiling[1] < nbch  # grouped, not fallback
-
-    cols_sched = ldpc.qc_entries(frame_size, rate, q)
+    if frames is None:
+        cfg = vv009_config()
+        pp = build_plan(cfg, 1, strict=False).plps[0]
+        cols, frames = pp.ldpc_cols, pp.fec_frames
+    else:
+        cfg = T2Config(frame_size=frame_size, code_rate=rate, fec_blocks=1,
+                       ti_blocks=1)
+        cols = ldpc.qc_entries(frame_size, rate, cfg.q_ldpc)
+    nbch, plen, q = cfg.nbch, cfg.ldpc_parity_bits, cfg.q_ldpc
     rng = np.random.default_rng(11)
-    nb = rng.integers(0, 2, (f, nbch), dtype=np.uint8)
-    par = np.asarray(qc_ldpc_parity_pallas(
-        cols_sched, nbch, plen, q, jnp.asarray(nb), interpret=True))
-    for i in (0, 77, f - 1):
-        ref = ldpc.encode_ref(nb[i], frame_size, rate, plen, q)
-        assert (par[i] == ref).all()
+    nb = rng.integers(0, 2, (frames, nbch), dtype=np.uint8)
+    par = np.asarray(jax.jit(
+        lambda x: qc_ldpc_parity(cols, q, plen, x))(jnp.asarray(nb)))
+    assert par.shape == (frames, plen) and par.dtype == np.uint8
+    for i in sorted({0, frames // 2, frames - 1}):
+        ref = ldpc.encode_ref(nb[i], cfg.frame_size, cfg.code_rate, plen, q)
+        assert (par[i] == ref).all(), f"frame {i}"

@@ -1,6 +1,6 @@
 """The driver entry points (__graft_entry__) must keep working: entry()
-compiles both production tails and cross-checks them (NaN-poison on
-disagreement), dryrun_multichip asserts sharded == sequential."""
+compiles both tails and cross-checks them (NaN-poison on disagreement),
+dryrun_multichip asserts sharded == sequential."""
 import sys
 
 import jax
@@ -24,4 +24,4 @@ def test_dryrun_multichip_small():
     # 2 devices: mux=2 x frame=1 plus the 2-device symbol-sharded leg;
     # raises AssertionError if any sharded output differs bit-for-bit
     # from the sequential chain
-    graft.dryrun_multichip(2)
+    graft.dryrun_multichip(2, devices=jax.devices("cpu"))

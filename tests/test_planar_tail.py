@@ -1,11 +1,9 @@
-"""The planar-f32 fast tail (round 4): complex64 never materializes.
+"""The planar-f32 tail: complex64 never materializes.
 
 ``transmit_step_iq_planar`` re-expresses the sample domain as separate
 re/im f32 planes with the frame builder gathering straight into the
-4-step IFFT's transposed layout (ops/ifft_pallas.py).  It must agree
-with the complex reference path to >120 dB on every supported geometry,
-for both implementations (XLA einsum tail - the shipped default on TPU
-- and the VMEM-resident Pallas kernel, exercised in interpret mode).
+4-step IFFT's transposed layout (ops/ifft4.py).  It must agree with the
+complex path to >120 dB at every FFT size.
 """
 import functools
 
@@ -19,7 +17,7 @@ from dvbt2ll_tpu.config import (CarrierMode, CodeRate, Constellation,
                                 PilotPattern, Rotation, T2Config,
                                 vv009_config)
 from dvbt2ll_tpu.io import synthetic_ts
-from dvbt2ll_tpu.ops.ifft_pallas import supported
+from dvbt2ll_tpu.ops.ifft4 import supported
 from dvbt2ll_tpu.pipeline import Transmitter, transmit_step_iq_planar
 
 
@@ -42,31 +40,54 @@ def _cfg_32k():
         num_data_symbols=4).validate()
 
 
-def _snr_planar_vs_complex(cfg, impl, batch=1, seed=17):
-    tx = Transmitter(cfg, batch, strict=False, use_pallas=False,
-                     allow_phase_drift=True)
+def _named(name):
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "bench", os.path.join(os.path.dirname(__file__), "..", "bench.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._named_config(name)
+
+
+def _cfg_1k():
+    return T2Config(
+        frame_size=FrameSize.SHORT, code_rate=CodeRate.C2_3,
+        constellation=Constellation.QPSK, rotation=Rotation.OFF,
+        fft_size=FFTSize.FFT_1K, guard_interval=GuardInterval.GI_1_8,
+        pilot_pattern=PilotPattern.PP4,
+        fec_blocks=1, ti_blocks=1, t2_frames=2,
+        num_data_symbols=16).validate()
+
+
+def _snr_planar_vs_complex(cfg, batch=1, seed=17):
+    tx = Transmitter(cfg, batch, strict=False, allow_phase_drift=True)
+    assert not tx._planar_tail  # CPU runs the complex tail
     ts = synthetic_ts(tx.bytes_per_step, seed=seed)
     ref = tx(ts)
     w = jnp.asarray(np.concatenate([np.zeros(187, np.uint8), ts]))
     planar = np.asarray(jax.jit(functools.partial(
-        transmit_step_iq_planar, tx.plan, interpret=True,
-        impl=impl))(w, jnp.int32(0)))
+        transmit_step_iq_planar, tx.plan))(w, jnp.int32(0)))
     got = planar.reshape(planar.shape[0], -1).view(np.complex64)
     err = float((np.abs(got - ref) ** 2).sum())
     return 10 * np.log10(float((np.abs(ref) ** 2).sum())
                          / max(err, 1e-30))
 
 
-@pytest.mark.parametrize("impl", ["einsum", "pallas"])
-@pytest.mark.parametrize("make_cfg", [vv009_config, _cfg_8k, _cfg_32k],
-                         ids=["4k", "8k", "32k"])
-def test_planar_matches_complex(make_cfg, impl):
-    """The planar math holds at every geometry (32K included) even
-    though the Transmitter only ENABLES it up to 8K - above that the
-    4-step's FLOP bill beats the layout savings (supported() gate)."""
+@pytest.mark.parametrize("make_cfg", [
+    _cfg_1k,                                   # GI 1/8 = 128, n2 = 8
+    lambda: _named("eq_2k_5mhz"),              # 2K + inverse-sinc eq plane
+    vv009_config,
+    _cfg_8k,
+    lambda: _named("16k_l1qpsk_both"),         # 16K extended, GI 1/16
+    _cfg_32k,
+], ids=["1k", "2k", "4k", "8k", "16k", "32k"])
+def test_planar_matches_complex(make_cfg):
+    """The planar math holds at every FFT size (16K/32K included) even
+    though supported() admits it only up to 8K."""
     cfg = make_cfg()
-    snr = _snr_planar_vs_complex(cfg, impl)
-    assert snr > 120, f"{impl}: {snr:.1f} dB"
+    snr = _snr_planar_vs_complex(cfg)
+    assert snr > 120, f"{snr:.1f} dB"
 
 
 def test_gate_caps_at_8k():
@@ -78,8 +99,7 @@ def test_planar_multi_frame_and_l1post_rotation():
     """frame_idx0 steering of the per-frame L1-post must survive the
     planar restructure (two steps cross the t2_frames wrap)."""
     cfg = vv009_config()
-    tx = Transmitter(cfg, 2, strict=False, use_pallas=False,
-                     allow_phase_drift=True)
+    tx = Transmitter(cfg, 2, strict=False, allow_phase_drift=True)
     ts = synthetic_ts(tx.bytes_per_step, seed=18)
     ref = tx(ts)
     w = jnp.asarray(np.concatenate([np.zeros(187, np.uint8), ts]))
@@ -97,15 +117,14 @@ def test_planar_multi_frame_and_l1post_rotation():
 def test_planar_step_is_shard_invariant():
     """The planar step sharded over a frame mesh must be bit-identical
     to the same planar step run sequentially (the invariant
-    ShardedTransmitter relies on when it swaps in the planar tail on
-    TPU meshes)."""
+    ShardedTransmitter relies on wherever select_step_iq picks the planar
+    tail)."""
     from jax.sharding import PartitionSpec as P
     from dvbt2ll_tpu.parallel import make_mesh
     from dvbt2ll_tpu.parallel.sharding import _shard_map, halo_windows
 
     cfg = vv009_config()
-    tx = Transmitter(cfg, 1, strict=False, use_pallas=False,
-                     allow_phase_drift=True)
+    tx = Transmitter(cfg, 1, strict=False, allow_phase_drift=True)
     plan = tx.plan
     n = tx.bytes_per_step
     ts = synthetic_ts(4 * n, seed=23)
@@ -142,11 +161,13 @@ def test_planar_step_is_shard_invariant():
     assert np.array_equal(out, seq)
 
 
-def test_unsupported_geometry_keeps_complex_tail():
-    """GIs below 128 samples (e.g. 32K GI 1/128's little sibling sizes)
-    break the whole-row prefix trick; the Transmitter must auto-gate
-    back to the complex tail.  1K FFT with GI 1/8 (gi = 128) IS
-    supported - n2 = 8 rows is a legal tile - and is covered below."""
+def test_unsupported_geometry_keeps_complex_tail(monkeypatch):
+    """GIs below 128 samples break the whole-row prefix trick: even where
+    a platform's policy is "planar", select_step_iq must gate such
+    geometries back to the complex tail, and admit the supported 1K
+    geometry (gi = 128, n2 = 8 rows)."""
+    from dvbt2ll_tpu import pipeline
+
     assert not supported(1024, 8)       # GI 1/128 of 1K
     assert not supported(4096 + 1, 128)
     cfg1k = T2Config(
@@ -157,15 +178,10 @@ def test_unsupported_geometry_keeps_complex_tail():
         fec_blocks=1, ti_blocks=1, t2_frames=2,
         num_data_symbols=16).validate()
     assert cfg1k.guard_samples == 32
-    tx = Transmitter(cfg1k, 1, strict=False, use_pallas=True)
-    assert not tx._planar_tail
-    # and the supported 1K geometry (gi = 128, n2 = 8 rows) still matches
-    cfg1k_ok = T2Config(
-        frame_size=FrameSize.SHORT, code_rate=CodeRate.C2_3,
-        constellation=Constellation.QPSK, rotation=Rotation.OFF,
-        fft_size=FFTSize.FFT_1K, guard_interval=GuardInterval.GI_1_8,
-        pilot_pattern=PilotPattern.PP4,
-        fec_blocks=1, ti_blocks=1, t2_frames=2,
-        num_data_symbols=16).validate()
+    monkeypatch.setitem(pipeline.STEP_TAIL, "cpu", "planar")
+    fn, planar = pipeline.select_step_iq(cfg1k, "cpu")
+    assert not planar and fn is pipeline.transmit_step_iq
+    cfg1k_ok = _cfg_1k()
     assert supported(cfg1k_ok.fft_points, cfg1k_ok.guard_samples)
-    assert _snr_planar_vs_complex(cfg1k_ok, "einsum", seed=19) > 120
+    fn, planar = pipeline.select_step_iq(cfg1k_ok, "cpu")
+    assert planar and fn is transmit_step_iq_planar

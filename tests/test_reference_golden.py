@@ -6,7 +6,7 @@ ldpc_calculate :625-646, interleavermod_bc_impl.cc:270-704,
 framemapperfint_cc_impl.cc:1948-2151, pilotgenp1insert_cc_impl.cc:2784-2907)
 compiled against stub GR headers and driven end-to-end.  These vectors
 share ZERO code with dvbt2ll_tpu/, so they verify the table builders the
-round-1 oracle could not (VERDICT.md "What's weak" #1).
+numpy oracle alone could not.
 
 Checked per config:
   - fast-path FEC stages bit-exact (BB header/scramble/BCH, LDPC)

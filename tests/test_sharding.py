@@ -51,9 +51,9 @@ def test_mux_and_frame_sharded_equals_sequential():
 def test_sharded_hlo_has_zero_collectives():
     """The steady-state scaling claim rests on this: the compiled 8-device
     sharded step must contain NO inter-device ops, so N chips run N
-    disjoint programs and scaling is linear in per-chip throughput
-    (BENCH.md "Scaling (measured)"; tools/bench_scaling.py audits the
-    same property)."""
+    disjoint programs and scaling is linear in per-device throughput
+    (tools/bench_scaling.py and chip_smoke.py --multi audit the same
+    property)."""
     from dvbt2ll_tpu.parallel.sharding import find_collectives, halo_windows
 
     cfg = vv009_config()
@@ -70,8 +70,8 @@ def test_sharded_hlo_has_zero_collectives():
 
 
 def test_find_collectives_matches_async_forms():
-    """The audit helper must catch the async -start/-done spellings TPU
-    HLO uses, and send/recv — not only the sync forms (ADVICE r3)."""
+    """The audit helper must catch the async -start/-done spellings XLA
+    emits, and send/recv — not only the sync forms."""
     from dvbt2ll_tpu.parallel.sharding import find_collectives
 
     hlo = """

@@ -6,7 +6,7 @@ reference blocks plus the reference's own LDPC encoder end-to-end on a
 deterministic synthetic TS stream, and packages every stage boundary into
 tests/golden_ref/<name>.npz.
 
-This breaks the round-1 oracle circularity (VERDICT.md "What's weak" #1):
+This breaks the circularity of testing against the repo's own oracle:
 these vectors share NO code with dvbt2ll_tpu/ — they come from the
 reference binary.
 

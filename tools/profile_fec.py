@@ -1,249 +1,59 @@
-"""Micro-profile of the bb_and_fec sub-stages on the current device."""
-import os
+"""Time the FEC front end against the whole step on the current device.
+
+Each part runs as its own jitted program at the step's shapes:
+
+  bb_and_fec      TS window -> LDPC frame bits (BB framing, CRC-8,
+                  scrambling, BCH matmul, LDPC)
+  ldpc            BCH codewords -> LDPC parity (qc_ldpc_parity, the
+                  static slice-XOR schedule bb_and_fec runs)
+  step            the Transmitter's whole jitted step
+
+and the LDPC share of the step is ldpc / step.
+
+Usage: python tools/profile_fec.py [batch] [iters] [config]
+"""
 import sys
-import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from _common import bench, jax
 
-import jax
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 import jax.numpy as jnp
 import numpy as np
 
-from dvbt2ll_tpu.config import vv009_config
+from bench import _named_config
 from dvbt2ll_tpu.io import synthetic_ts
-from dvbt2ll_tpu.pipeline import Transmitter, _plp_consts
-from dvbt2ll_tpu.tables.ldpc import encoder_gather
-
-
-def _gather_for(cfg):
-    """The padded-gather formulation left the production plan (the QC-roll
-    schedule replaced it); rebuild it here for the A/B evidence runs."""
-    g, _ = encoder_gather(cfg.frame_size, cfg.code_rate,
-                          cfg.ldpc_parity_bits, cfg.nbch, cfg.q_ldpc)
-    return np.asarray(g, np.int32)
-
-
-def fence(x):
-    return float(jnp.sum(jnp.ravel(x)[:16].astype(jnp.float32)))
-
-
-def bench(name, fn, *args, iters=30):
-    f = jax.jit(fn)
-    out = f(*args)
-    fence(out)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = f(*args)
-    fence(out)
-    dt = (time.perf_counter() - t0) / iters
-    print(f"{name:22s} {dt*1e3:8.2f} ms  out={getattr(out, 'shape', None)} "
-          f"{getattr(out, 'dtype', None)}", flush=True)
-    return out
+from dvbt2ll_tpu.pipeline import Transmitter, bb_and_fec, qc_ldpc_parity
 
 
 def main():
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 256
-    cfg = vv009_config()
-    tx = Transmitter(cfg, batch, strict=False)
+    iters = int(sys.argv[2]) if len(sys.argv) > 2 else 30
+    name = sys.argv[3] if len(sys.argv) > 3 else "vv009_4kshort"
+    cfg = _named_config(name)
+    tx = Transmitter(cfg, batch, strict=False, allow_phase_drift=True)
     pp = tx.plan.plps[0]
-    c = _plp_consts(pp)
-    # crc_scatter left the hot-path consts (VERDICT r1 weak #9); rebuild it for the A/B
-    c = dict(c, crc_scatter=np.asarray(pp.crc_scatter, np.int32))
-    n = tx.bytes_per_step
-    ts = np.concatenate([np.zeros(187, np.uint8), synthetic_ts(n)])
-    w = jax.device_put(jnp.asarray(ts))
-    f, p = pp.fec_frames, pp.n_packets
-    ldpc_g = _gather_for(cfg)
-    print(f"F={f} packets={p} nbch={cfg.nbch} plen={cfg.ldpc_parity_bits} "
-          f"D={ldpc_g.shape[1]}", flush=True)
+    w = jnp.asarray(np.concatenate(
+        [np.zeros(187, np.uint8), synthetic_ts(pp.ts_bytes_in)]))
+    fi = jnp.int32(0)
+    print(f"{name} batch {batch} on {jax.devices()[0].device_kind}: "
+          f"F={pp.fec_frames} nbch={cfg.nbch} "
+          f"plen={cfg.ldpc_parity_bits} "
+          f"schedule={sum(len(e) for e in pp.ldpc_cols)} slices", flush=True)
 
-    bits = bench("unpackbits", lambda a: jnp.unpackbits(a), w)
-
-    def crc_part(bits):
-        stream = bits[187 * 8:]
-        pkt = (bits[: p * 188 * 8].reshape(p, 188 * 8)[:, : 187 * 8]
-               .astype(jnp.int8))
-        crc = (jnp.matmul(pkt, c["crc_matrix"],
-                          preferred_element_type=jnp.int32) & 1
-               ).astype(jnp.uint8)
-        return stream.at[c["crc_scatter"]].set(crc.reshape(-1))
-
-    stream = bench("crc+scatter", crc_part, bits)
-
-    def header_scramble(stream):
-        df = stream.reshape(f, cfg.kbch - 80)
-        kbch_bits = jnp.concatenate([c["headers"], df], axis=1)
-        return kbch_bits ^ c["scramble"][None, :]
-
-    kbch_bits = bench("header+scramble", header_scramble, stream)
-
-    def bch(kb):
-        par = (jnp.matmul(kb.astype(jnp.int8), c["bch_matrix"],
-                          preferred_element_type=jnp.int32) & 1).astype(
-                              jnp.uint8)
-        return jnp.concatenate([kb, par], axis=1)
-
-    nbch_bits = bench("bch matmul", bch, kbch_bits)
-
-    def ldpc_gather_sum(nb):
-        ext_t = jnp.concatenate(
-            [nb.T, jnp.zeros((1, nb.shape[0]), jnp.uint8)], axis=0)
-        return (ext_t[ldpc_g].astype(jnp.int32).sum(1) & 1)
-
-    acc = bench("ldpc gather+sum", ldpc_gather_sum, nbch_bits)
-
-    bench("ldpc cumsum", lambda a: (jnp.cumsum(a, axis=0) & 1
-                                    ).astype(jnp.uint8).T, acc)
-
-    # --- candidate: uint8 accumulate (mod-256 preserves parity) ----------
-    def ldpc_u8(nb):
-        ext_t = jnp.concatenate(
-            [nb.T, jnp.zeros((1, nb.shape[0]), jnp.uint8)], axis=0)
-        acc = ext_t[ldpc_g].sum(1, dtype=jnp.uint8)
-        return (jnp.cumsum(acc, axis=0, dtype=jnp.uint8) & 1).T
-
-    bench("ldpc u8 full", ldpc_u8, nbch_bits)
-
-    # --- candidate: packed-F XOR + associative scan ----------------------
-    def ldpc_packed(nb):
-        fb = nb.shape[0]
-        packed = jnp.packbits(nb.T, axis=-1)       # (nbch, F/8) u8
-        packed = jnp.concatenate(
-            [packed, jnp.zeros((1, fb // 8), jnp.uint8)], axis=0)
-        g = packed[ldpc_g]               # (plen, D, F/8)
-        x = g[:, 0]
-        for k in range(1, g.shape[1]):
-            x = x ^ g[:, k]
-        x = jax.lax.associative_scan(jnp.bitwise_xor, x, axis=0)
-        return jnp.unpackbits(x, axis=-1).T        # (F, plen)
-
-    out_p = bench("ldpc packedF", ldpc_packed, nbch_bits)
-
-    ref = np.asarray(jax.jit(ldpc_u8)(nbch_bits))
-    got = np.asarray(out_p)
-    print("packedF correct:", np.array_equal(ref, got), flush=True)
+    bits, t_fec = bench("bb_and_fec", lambda a: bb_and_fec(pp, a), w,
+                        iters=iters)
+    nbch_bits = bits[:, :cfg.nbch]
+    _, t_ldpc = bench(
+        "ldpc", lambda a: qc_ldpc_parity(pp.ldpc_cols, cfg.q_ldpc,
+                                         cfg.ldpc_parity_bits, a),
+        nbch_bits, iters=iters)
+    if len(tx.plan.plps) == 1:
+        _, t_step = bench("step", lambda a, i: tx._step(a, i), w, fi,
+                          iters=iters)
+        print(f"ldpc share of the step {t_ldpc / t_step:.3f}, "
+              f"bb_and_fec share {t_fec / t_step:.3f}; "
+              f"ldpc {pp.fec_frames * cfg.ldpc_parity_bits / t_ldpc / 1e9:.2f}"
+              f" Gbit/s of parity", flush=True)
 
 
 if __name__ == "__main__":
     main()
-
-
-def ldpc_i32_variant():
-    """XOR-fold on int32-bitcast words + associative prefix-XOR scan."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from dvbt2ll_tpu.config import vv009_config
-    from dvbt2ll_tpu.pipeline import Transmitter, _plp_consts
-
-    batch = 256
-    cfg = vv009_config()
-    tx = Transmitter(cfg, batch, strict=False)
-    pp = tx.plan.plps[0]
-    c = _plp_consts(pp)
-    # crc_scatter left the hot-path consts (VERDICT r1 weak #9); rebuild it for the A/B
-    c = dict(c, crc_scatter=np.asarray(pp.crc_scatter, np.int32))
-    f = pp.fec_frames
-    rng = np.random.default_rng(0)
-    nbch_bits = jnp.asarray(rng.integers(0, 2, (f, cfg.nbch), dtype=np.uint8))
-
-    def current(nb):
-        ext_t = jnp.concatenate(
-            [nb.T, jnp.zeros((1, nb.shape[0]), jnp.uint8)], axis=0)
-        acc_t = ext_t[ldpc_g].sum(1, dtype=jnp.uint8)
-        return (jnp.cumsum(acc_t, axis=0, dtype=jnp.uint8) & 1).T
-
-    def i32_fold(nb):
-        fr = nb.shape[0]
-        ext_t = jnp.concatenate(
-            [nb.T, jnp.zeros((1, fr), jnp.uint8)], axis=0)
-        ext32 = jax.lax.bitcast_convert_type(
-            ext_t.reshape(-1, fr // 4, 4), jnp.int32)   # (nbch+1, F/4)
-        g = ext32[_gather_for(cfg)]                      # (plen, D, F/4)
-        x = g[:, 0]
-        for k in range(1, g.shape[1]):
-            x = x ^ g[:, k]
-        x = jax.lax.associative_scan(jnp.bitwise_xor, x, axis=0)
-        out = jax.lax.bitcast_convert_type(x, jnp.uint8)  # (plen, F/4, 4)
-        return (out.reshape(x.shape[0], fr) & 1).T
-
-    a = bench("ldpc u8 gather+cumsum", current, nbch_bits)
-    b = bench("ldpc i32 xor+scan", i32_fold, nbch_bits)
-    print("i32 equal:", bool(jnp.array_equal(a, b)), flush=True)
-
-
-if __name__ == "__main__" and "--i32" in sys.argv:
-    ldpc_i32_variant()
-
-
-def ldpc_qc_roll_variant():
-    """QC-structured formulation: parity address (a + n*q) mod 360q means
-    table entry (r, a) XORs roll(group_r, a//q) into column a%q of the
-    (360, q) accumulator - no gather; then the prefix-XOR chain factors
-    into an in-row cumulative XOR + an exclusive row scan."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from dvbt2ll_tpu.config import vv009_config
-    from dvbt2ll_tpu.pipeline import Transmitter, _plp_consts
-    from dvbt2ll_tpu.tables import table
-    from dvbt2ll_tpu.tables.ldpc import _TABLES
-
-    batch = 256
-    cfg = vv009_config()
-    tx = Transmitter(cfg, batch, strict=False)
-    pp = tx.plan.plps[0]
-    c = _plp_consts(pp)
-    f = pp.fec_frames
-    q, plen = cfg.q_ldpc, cfg.ldpc_parity_bits
-    rows = cfg.nbch // 360
-    rng = np.random.default_rng(0)
-    nbch_bits = jnp.asarray(rng.integers(0, 2, (f, cfg.nbch), dtype=np.uint8))
-
-    tab = table(_TABLES[(cfg.frame_size, cfg.code_rate)])
-    by_col = [[] for _ in range(q)]
-    n_entries = 0
-    for r in range(tab.shape[0]):
-        for a in tab[r, 1 : 1 + int(tab[r, 0])]:
-            by_col[int(a) % q].append((r, int(a) // q))
-            n_entries += 1
-    print(f"qc entries={n_entries} rows={rows} q={q}", flush=True)
-
-    def current(nb):
-        ext_t = jnp.concatenate(
-            [nb.T, jnp.zeros((1, nb.shape[0]), jnp.uint8)], axis=0)
-        acc_t = ext_t[ldpc_g].sum(1, dtype=jnp.uint8)
-        return (jnp.cumsum(acc_t, axis=0, dtype=jnp.uint8) & 1).T
-
-    def qc_roll(nb):
-        g = nb.reshape(nb.shape[0], rows, 360)
-        cols = []
-        for cc in range(q):
-            acc = None
-            for (r, s) in by_col[cc]:
-                t = jnp.roll(g[:, r], s, axis=1)
-                acc = t if acc is None else acc ^ t
-            cols.append(acc if acc is not None
-                        else jnp.zeros((nb.shape[0], 360), jnp.uint8))
-        acc = jnp.stack(cols, axis=2)          # (F, 360, q)
-        run = acc[:, :, 0]
-        incl = [run]
-        for cc in range(1, q):
-            run = run ^ acc[:, :, cc]
-            incl.append(run)
-        incl = jnp.stack(incl, axis=2)          # in-row inclusive prefix
-        row_inc = jax.lax.associative_scan(jnp.bitwise_xor, run, axis=1)
-        row_excl = jnp.concatenate(
-            [jnp.zeros((nb.shape[0], 1), jnp.uint8), row_inc[:, :-1]], axis=1)
-        return (incl ^ row_excl[:, :, None]).reshape(nb.shape[0], plen)
-
-    a = bench("ldpc u8 gather+cumsum", current, nbch_bits)
-    b = bench("ldpc qc-roll", qc_roll, nbch_bits)
-    print("qc equal:", bool(jnp.array_equal(a, b)), flush=True)
-
-
-if __name__ == "__main__" and "--qc" in sys.argv:
-    ldpc_qc_roll_variant()
